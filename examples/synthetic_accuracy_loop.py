@@ -19,7 +19,7 @@ import time
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
@@ -50,14 +50,14 @@ def make_dataset(root: str, n: int = 16, size: int = 96) -> str:
 
 
 def main(steps: int = 400):
-    from yolo_quantization_tpu.data.loader import BatchLoader
-    from yolo_quantization_tpu.data.voc import AugmentConfig, DetectionDataset
-    from yolo_quantization_tpu.eval.f1 import f1_sweep
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import Engine
-    from yolo_quantization_tpu.infer.float_engine import FloatEngine
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.train.qat import TrainConfig, Trainer
+    from yoloq.data.loader import BatchLoader
+    from yoloq.data.voc import AugmentConfig, DetectionDataset
+    from yoloq.eval.f1 import f1_sweep
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import Engine
+    from yoloq.infer.float_engine import FloatEngine
+    from yoloq.models import zoo
+    from yoloq.train.qat import TrainConfig, Trainer
 
     root = tempfile.mkdtemp(prefix="yoloq_demo_")
     list_file = make_dataset(root)

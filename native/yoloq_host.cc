@@ -1,6 +1,6 @@
-// yoloq_host: native host-side runtime for yolo_quantization_tpu.
+// yoloq_host: native host-side runtime for yoloq.
 //
-// The TPU runs the network; these are the per-frame host paths that the
+// The accelerator runs the network; these are the per-frame host paths that the
 // reference implements in C (src/box.c NMS, src/image.c resize, the
 // examples/detector.c:842-854 F1 matching loop) and that dominate host CPU
 // time in serving/eval:
@@ -9,7 +9,7 @@
 //   - truth<->detection IoU matching for F1/recall counting
 //   - darknet align-corners bilinear resize (src/image.c resize_image)
 //
-// Exposed as a plain C ABI consumed via ctypes (yolo_quantization_tpu/utils/native.py).
+// Exposed as a plain C ABI consumed via ctypes (yoloq/utils/native.py).
 // Build: make -C native   (produces libyoloq_host.so)
 
 #include <algorithm>

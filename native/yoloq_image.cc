@@ -4,7 +4,7 @@
 // pthreads (vendored stb decode in src/stb_image.h via src/image.c:1270-1316
 // load_image, and the per-pixel augmentation chain of src/data.c:1036-1088
 // load_data_detection: resize -> place -> HSV distort -> flip).  This file is
-// the TPU framework's native equivalent: libjpeg/libpng decode plus one fused
+// the framework's native equivalent: libjpeg/libpng decode plus one fused
 // augmentation kernel, called from the Python loader's thread pool via ctypes
 // (the GIL is released during the call, so decode+augment parallelize across
 // loader threads).  Random parameters are drawn host-side in Python

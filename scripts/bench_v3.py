@@ -3,7 +3,7 @@
 The reference cannot run full yolov3 integer end-to-end (its shortcut layer
 is float-only, src/shortcut_layer.c); this framework quantizes shortcuts
 with learned ranges, so the whole 61.6-GMAC graph runs in the uint8 domain.
-One JSON line, same timing discipline as bench.py.
+Prints the device, then one JSON line, with bench.py's timing and peaks.
 
 Usage: python scripts/bench_v3.py [batch]
 """
@@ -18,65 +18,45 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
 
 
 def main():
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 
     import bench
-    from yolo_quantization_tpu.eval import detect
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import build_forward
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.models.presets import synthetic_quant_state
-    from yolo_quantization_tpu.nn.graph import init_params_numpy
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import Engine
+    from yoloq.models import zoo
+    from yoloq.models.presets import synthetic_quant_state
+    from yoloq.nn.graph import init_params_numpy
+    from yoloq.utils.runtime import device_report, setup_compile_cache
+
+    setup_compile_cache()
+    dev = device_report()
+    for line in dev["nvidia_smi"]:
+        print(line, flush=True)
+    peaks = bench.peaks_for(dev["kind"])
 
     net = zoo.yolov3(classes=80, width=416, height=416)
-    params = init_params_numpy(0, net)
-    program = convert(net, params, synthetic_quant_state(net))
-    fwd = build_forward(program)
-    arrays = jax.device_put(program.arrays)
-
-    @jax.jit
-    def run(arrays, x):
-        heads = fwd(arrays, x)
-        b, o, c = detect.decode_all_heads(heads, net)
-        b, o, c = detect.top_k_detections(b, o, c, 64)
-        return b, o, c, jnp.sum(o)
-
-    x = jax.jit(
-        lambda k: jax.random.uniform(k, (batch, 416, 416, 3), jnp.float32)
-    )(jax.random.PRNGKey(0))
+    program = convert(net, init_params_numpy(0, net), synthetic_quant_state(net))
+    engine = Engine(program, max_det=64)
+    run, arrays = engine._run, engine.arrays
     t0 = time.perf_counter()
-    float(run(arrays, x)[3])
+    jax.block_until_ready(run(arrays, bench._device_batch(batch)))
     compile_s = time.perf_counter() - t0
-
-    def chain(n):
-        t0 = time.perf_counter()
-        out = None
-        for _ in range(n):
-            out = run(arrays, x)
-        float(out[3])
-        return time.perf_counter() - t0
-
-    t1 = min(chain(10) for _ in range(2))
-    t2 = min(chain(20) for _ in range(2))
-    host_ips = 10 * batch / t1
-    dev_s = max((t2 - t1) / 10, 1e-9)
+    ips = bench.throughput(run, arrays, batch, iters=10)
     macs = bench.conv_macs_per_image(program)
-    dev_ips = batch / dev_s
     print(json.dumps({
-        "metric": "yolov3-full uint8 416x416 inference throughput (1 chip)",
+        "metric": "yolov3-full uint8 416x416 inference throughput (1 card)",
         "batch": batch,
-        "images_per_sec": round(host_ips, 1),
-        "device_images_per_sec": round(dev_ips, 1),
-        "device_ms_per_batch": round(1e3 * dev_s, 3),
-        "mfu_int8": round(2.0 * macs * dev_ips / bench.V5E_INT8_TOPS, 4),
-        "conv_gmacs_per_image": round(macs / 1e9, 3),
-        "compile_s": round(compile_s, 1),
-        "quantized_shortcuts": True,
-        "device": str(jax.devices()[0]),
+        "images_per_sec": ips,
+        "mfu_int8": 2.0 * macs * ips / peaks["int8_ops"],
+        "conv_gmacs_per_image": macs / 1e9,
+        "compile_s": compile_s,
+        "platform": dev["platform"],
+        "device_kind": dev["kind"],
+        "device_count": dev["count"],
+        "nvidia_smi": dev["nvidia_smi"],
     }))
 
 

@@ -11,10 +11,10 @@ reference C binary (ArtyZe/yolo_quantization) and in this framework:
   3. run native/parity_shim (our harness linked against the reference objects,
      reproducing `darknet detector test`, examples/detector.c:878-950) -> dumps
      the letterboxed input, every layer's uint8/f32 output, and raw detections
-  4. TIER 1 (bit-exact): run the numpy C-twin (yolo_quantization_tpu/parity)
+  4. TIER 1 (bit-exact): run the numpy C-twin (yoloq/parity)
      on the same input and assert byte-identical uint8 layer outputs,
      bit-identical quant_stop dequants, and matching detections
-  5. TIER 2 (engine): run the TPU integer engine (route_rescale=False so the
+  5. TIER 2 (engine): run the integer engine (route_rescale=False so the
      concat semantics match the reference's raw byte copy) and report per-layer
      LSB deltas, detection agreement, and the detector-f1 protocol's TP/FP/FN
      (examples/detector.c:805-854) computed identically on both detection sets
@@ -59,10 +59,10 @@ def export_checkpoint(outdir: str, image_path: str, seed: int = 0):
     """Random-weight tiny model + quant ranges calibrated on the test image."""
     import jax
 
-    from yolo_quantization_tpu.data.image import letterbox, load_image_rgb
-    from yolo_quantization_tpu.models.cfg import load_cfg
-    from yolo_quantization_tpu.models.darknet_weights import save_darknet_weights
-    from yolo_quantization_tpu.nn.graph import ForwardMode, forward, init_params, init_quant_state
+    from yoloq.data.image import letterbox, load_image_rgb
+    from yoloq.models.cfg import load_cfg
+    from yoloq.models.darknet_weights import save_darknet_weights
+    from yoloq.nn.graph import ForwardMode, forward, init_params, init_quant_state
 
     net, _ = load_cfg(CFG)
     params = init_params(jax.random.PRNGKey(seed), net)
@@ -164,8 +164,8 @@ def f1_counts(dets: np.ndarray, truths: np.ndarray, thre: float, iou_thresh: flo
 
 
 def run_twin(net, wpath, sized_chw, thresh):
-    from yolo_quantization_tpu.models.darknet_weights import load_darknet_weights
-    from yolo_quantization_tpu.parity.ctwin import CTwin, yolo_detections_c
+    from yoloq.models.darknet_weights import load_darknet_weights
+    from yoloq.parity.ctwin import CTwin, yolo_detections_c
 
     ckpt = load_darknet_weights(wpath, net)
     twin = CTwin(net, ckpt)
@@ -177,7 +177,7 @@ def run_twin(net, wpath, sized_chw, thresh):
 
 
 def run_engine(net, ckpt, sized_chw, in_scale, in_zp, dynamic=False):
-    """TPU engine with C-matching route semantics; returns per-layer outputs
+    """Integer engine with C-matching route semantics; returns per-layer outputs
     (NHWC) and raw head tensors.
 
     ``dynamic=True`` exercises the engine's per-image dynamic input
@@ -187,9 +187,9 @@ def run_engine(net, ckpt, sized_chw, in_scale, in_zp, dynamic=False):
     (src/blas.c:213-256), making tier 2 cover that mode too."""
     import jax
 
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import build_forward
-    from yolo_quantization_tpu.models.darknet_weights import _range_from_scale_zp
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import build_forward
+    from yoloq.models.darknet_weights import _range_from_scale_zp
 
     qs = {k: dict(v) for k, v in ckpt.quant_state.items()}
     lo, hi = _range_from_scale_zp(float(in_scale), int(in_zp))
@@ -261,7 +261,7 @@ def main() -> int:
         [v for k, v in mism.items() if isinstance(k, str)], default=0.0
     )
     # twin detections vs shim detections
-    from yolo_quantization_tpu.parity.ctwin import yolo_detections_c
+    from yoloq.parity.ctwin import yolo_detections_c
     from PIL import Image
 
     with Image.open(args.image) as im:
@@ -280,7 +280,7 @@ def main() -> int:
     report["tier1_bit_exact"] = exact
     report["tier1_ok"] = tier1_ok
 
-    # --- TIER 2: the TPU integer engine (rounding epilogue, tolerance-based)
+    # --- TIER 2: the integer engine (rounding epilogue, tolerance-based)
     program, eng_out, eng_heads = run_engine(
         net, ckpt, sized_chw, twin_res.in_scale, twin_res.in_zp,
         dynamic=args.dynamic,
@@ -309,7 +309,7 @@ def main() -> int:
     # engine detections through the SAME decode code as the twin
     heads_cf = []
     yolo_specs = [s for s in net.specs if type(s).__name__ == "YoloSpec"]
-    from yolo_quantization_tpu.parity.ctwin import CTwin as _CT
+    from yoloq.parity.ctwin import CTwin as _CT
     for h, spec in zip(eng_heads, yolo_specs):
         na = len(spec.mask)
         chw = h[0].transpose(2, 0, 1)  # (C,H,W), C = na*(5+classes)
@@ -321,7 +321,7 @@ def main() -> int:
 
     # identical NMS + f1 counting, applied to all three detection sets:
     # shim (compiled C), twin (our C-exact backend — counts must be
-    # IDENTICAL), engine (TPU rounding epilogue — recall counts must be
+    # IDENTICAL), engine (rounding epilogue — recall counts must be
     # identical; the raw proposal count may jitter with LSB drift near thresh)
     truths = np.asarray(
         [[0.5, 0.5, 0.4, 0.4], [0.25, 0.3, 0.2, 0.25]], np.float32

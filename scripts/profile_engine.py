@@ -1,119 +1,80 @@
-"""Capture a device trace of the flagship integer engine and print the
-per-fusion time breakdown (VERDICT r1 item 3: find the single-chip bound).
+"""Capture a device trace of the integer engine and print where the time goes.
 
-Runs the engine at the given batch under jax.profiler, then parses the
-XPlane protobuf for TPU op durations, aggregating by HLO fusion name.
+Runs the engine at the given batch under jax.profiler, then sums the device
+durations per HLO op ("XLA Ops") and per kernel (the stream lines) from the
+GPU planes of the trace (utils.profiling.device_op_times).
 
-Usage: python scripts/profile_engine.py [batch] [--pallas] [--v3]
+Usage: python scripts/profile_engine.py [batch] [--v3]
+
+The trace goes to build/trace_engine.
 
 --v3 profiles the full yolov3 graph (quantized shortcuts) instead of the
-flagship tiny — the r4 deliverable: the per-fusion table naming where the
-61.6-GMAC graph's device time goes (VERDICT r3 item 2).
+flagship tiny.
 """
 
 from __future__ import annotations
 
-import glob
-import gzip
 import os
 import sys
-from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
+
+RUNS = 6
 
 
-def capture(batch: int, use_pallas: bool, logdir: str, v3: bool = False) -> None:
-    from yolo_quantization_tpu.eval import detect
-    from yolo_quantization_tpu.infer.engine import build_forward
-    from yolo_quantization_tpu.models.presets import flagship_program
+def build(v3: bool):
+    from yoloq.infer.engine import Engine
+    from yoloq.models.presets import flagship_program
 
     if v3:
-        from yolo_quantization_tpu.infer.convert import convert
-        from yolo_quantization_tpu.models import zoo
-        from yolo_quantization_tpu.models.presets import synthetic_quant_state
-        from yolo_quantization_tpu.nn.graph import init_params_numpy
+        from yoloq.infer.convert import convert
+        from yoloq.models import zoo
+        from yoloq.models.presets import synthetic_quant_state
+        from yoloq.nn.graph import init_params_numpy
 
-        net_v3 = zoo.yolov3(classes=80, width=416, height=416)
-        program = convert(
-            net_v3, init_params_numpy(0, net_v3), synthetic_quant_state(net_v3)
-        )
+        net = zoo.yolov3(classes=80, width=416, height=416)
+        program = convert(net, init_params_numpy(0, net), synthetic_quant_state(net))
     else:
         program = flagship_program()
-    fwd = build_forward(program, use_pallas=use_pallas)
-    arrays = jax.device_put(program.arrays)
-    net = program.net
+    return Engine(program, max_det=64)
 
-    @jax.jit
-    def run(arrays, x):
-        heads = fwd(arrays, x)
-        boxes, obj, cls = detect.decode_all_heads(heads, net)
-        boxes, obj, cls = detect.top_k_detections(boxes, obj, cls, 64)
-        return jnp.sum(obj)
 
+def capture(engine, batch: int, logdir: str) -> None:
     x = jax.jit(
-        lambda k: jax.random.uniform(k, (batch, 416, 416, 3), jnp.float32)
+        lambda k: jax.random.uniform(k, (batch, 416, 416, 3), jax.numpy.float32)
     )(jax.random.PRNGKey(0))
-    float(run(arrays, x))  # compile + warm
+    jax.block_until_ready(engine._run(engine.arrays, x))  # compile + warm
     with jax.profiler.trace(logdir):
         out = None
-        for _ in range(6):
-            out = run(arrays, x)
-        float(out)
+        for _ in range(RUNS):
+            out = engine._run(engine.arrays, x)
+        jax.block_until_ready(out)
 
 
-def parse_xplane(logdir: str, min_frac: float = 0.002):
-    """Aggregate TPU op durations from the newest Chrome trace in logdir."""
-    import json
-
-    paths = sorted(
-        glob.glob(os.path.join(logdir, "**", "*.trace.json.gz"), recursive=True),
-        key=os.path.getmtime,
-    )
-    if not paths:
-        raise FileNotFoundError(f"no trace.json.gz under {logdir}")
-    tr = json.load(gzip.open(paths[-1]))
-    events = tr["traceEvents"]
-    tpu_pids = {
-        e["pid"]
-        for e in events
-        if e.get("ph") == "M" and e.get("name") == "process_name"
-        and "TPU" in e.get("args", {}).get("name", "")
-    }
-    per_op: dict[str, float] = defaultdict(float)
-    total = 0.0
-    for e in events:
-        if e.get("ph") == "X" and e.get("pid") in tpu_pids:
-            dur = e.get("dur", 0) / 1e6  # us -> s
-            per_op[e.get("name", "?")] += dur
-            total += dur
-    return per_op, total
+def print_table(title: str, per_name: dict[str, int], top: int = 40) -> None:
+    total = sum(per_name.values())
+    print(f"{title}: {total / RUNS / 1e6:.3f} ms/run over {len(per_name)} names")
+    for name, ns in sorted(per_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{ns / RUNS / 1e6:9.3f} ms/run {100 * ns / total:5.1f}%  {name[:140]}")
 
 
 def main():
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    from yoloq.utils.profiling import device_op_times
+    from yoloq.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
+    logdir = "build/trace_engine"
     v3 = "--v3" in sys.argv
-    batch = int(args[0]) if args else (64 if v3 else 128)
-    use_pallas = "--pallas" in sys.argv
-    logdir = f"/tmp/yoloq_trace_{'v3_' if v3 else ''}{'pl' if use_pallas else 'xla'}"
-    capture(batch, use_pallas, logdir, v3=v3)
-    per_op, total = parse_xplane(logdir)
-    if not per_op:
-        print("no XLA Ops events found; planes may be named differently")
-        return
-    print(f"total device op time {total*1e3:.2f} ms over 6 runs "
-          f"({total/6*1e3:.2f} ms/run, batch {batch} -> "
-          f"{6*batch/total:.0f} img/s device-side)")
-    items = sorted(per_op.items(), key=lambda kv: -kv[1])
-    cum = 0.0
-    for name, dur in items:
-        frac = dur / total
-        cum += frac
-        if frac < 0.005 and cum > 0.97:
-            break
-        print(f"{dur/6*1e3:8.3f} ms/run {frac*100:5.1f}% {name[:110]}")
+    pos = [a for a in sys.argv[1:] if not a.startswith("--")]
+    batch = int(pos[0]) if pos else (64 if v3 else 128)
+    capture(build(v3), batch, logdir)
+    lines = device_op_times(logdir)
+    if not lines:
+        raise RuntimeError(f"no GPU device planes in the trace under {logdir}")
+    for line, per_name in lines.items():
+        print_table(f"[{line}] batch {batch}", per_name)
 
 
 if __name__ == "__main__":

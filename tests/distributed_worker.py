@@ -27,7 +27,7 @@ def main() -> None:
     coordinator, num_procs, proc_id, outfile = (
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     )
-    from yolo_quantization_tpu.parallel import distributed
+    from yoloq.parallel import distributed
 
     distributed.initialize(coordinator, num_procs, proc_id)
     assert jax.process_count() == num_procs, jax.process_count()
@@ -35,10 +35,10 @@ def main() -> None:
 
     import numpy as np
 
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.parallel import mesh as pmesh
-    from yolo_quantization_tpu.train.loss import MAX_BOXES
-    from yolo_quantization_tpu.train.qat import (
+    from yoloq.models import zoo
+    from yoloq.parallel import mesh as pmesh
+    from yoloq.train.loss import MAX_BOXES
+    from yoloq.train.qat import (
         TrainConfig, init_train_state, make_train_step,
     )
 

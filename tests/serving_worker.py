@@ -30,9 +30,9 @@ def serve_frames(frames, thresh=0.05):
     """Build the deterministic engine+server and run the frames through the
     full continuous-batching path.  Shared with the in-test single-process
     run so both sides execute identical code."""
-    from yolo_quantization_tpu.infer.engine import Engine
-    from yolo_quantization_tpu.infer.serving import Server
-    from yolo_quantization_tpu.models.presets import flagship_program
+    from yoloq.infer.engine import Engine
+    from yoloq.infer.serving import Server
+    from yoloq.models.presets import flagship_program
 
     engine = Engine(flagship_program(classes=3, size=96), max_det=32)
     server = Server(engine, batch_size=(1, 4), max_delay_ms=5.0)
@@ -69,7 +69,7 @@ def main() -> None:
     coordinator, num_procs, proc_id, outfile = (
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     )
-    from yolo_quantization_tpu.parallel import distributed
+    from yoloq.parallel import distributed
 
     distributed.initialize(coordinator, num_procs, proc_id)
     assert jax.process_count() == num_procs, jax.process_count()

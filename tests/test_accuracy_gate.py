@@ -58,10 +58,10 @@ def _make_dataset(root: str, n: int = 24, size: int = 96) -> str:
 def trained(tmp_path_factory):
     import jax
 
-    from yolo_quantization_tpu.data.loader import BatchLoader
-    from yolo_quantization_tpu.data.voc import AugmentConfig, DetectionDataset
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.train.qat import TrainConfig, Trainer
+    from yoloq.data.loader import BatchLoader
+    from yoloq.data.voc import AugmentConfig, DetectionDataset
+    from yoloq.models import zoo
+    from yoloq.train.qat import TrainConfig, Trainer
 
     root = str(tmp_path_factory.mktemp("acc"))
     list_file = _make_dataset(root)
@@ -72,7 +72,7 @@ def trained(tmp_path_factory):
     # can never match them, so use the standard darknet tiny anchor set
     from dataclasses import replace
 
-    from yolo_quantization_tpu.nn.graph import YoloSpec
+    from yoloq.nn.graph import YoloSpec
 
     std = ((10, 14), (23, 27), (37, 58), (81, 82), (135, 169), (344, 319))
     net = replace(net, specs=tuple(
@@ -99,10 +99,10 @@ def trained(tmp_path_factory):
 
 
 def test_int_engine_holds_float_f1(trained):
-    from yolo_quantization_tpu.eval.f1 import f1_sweep
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import Engine
-    from yolo_quantization_tpu.infer.float_engine import (
+    from yoloq.eval.f1 import f1_sweep
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import Engine
+    from yoloq.infer.float_engine import (
         FloatEngine,
         QatSimEngine,
     )
@@ -148,9 +148,9 @@ def test_both_heads_produce_detections(trained):
     """The fine head (route+upsample path) must carry the small boxes."""
     import jax.numpy as jnp
 
-    from yolo_quantization_tpu.data.image import letterbox, load_image_rgb
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import Engine
+    from yoloq.data.image import letterbox, load_image_rgb
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import Engine
 
     net, state, list_file = trained
     paths = open(list_file).read().split()

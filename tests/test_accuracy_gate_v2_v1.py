@@ -64,9 +64,9 @@ def _train(net, list_file, size, steps, batch, quant_start, seen0=0, key=3,
     import jax
     import jax.numpy as jnp
 
-    from yolo_quantization_tpu.data.loader import BatchLoader
-    from yolo_quantization_tpu.data.voc import AugmentConfig, DetectionDataset
-    from yolo_quantization_tpu.train.qat import TrainConfig, Trainer
+    from yoloq.data.loader import BatchLoader
+    from yoloq.data.voc import AugmentConfig, DetectionDataset
+    from yoloq.train.qat import TrainConfig, Trainer
 
     cfg_kw = dict(
         learning_rate=1e-3, burn_in=20, quant_start_step=quant_start,
@@ -97,7 +97,7 @@ class TestRegionIntegerGate:
 
     @pytest.fixture(scope="class")
     def trained(self, tmp_path_factory):
-        from yolo_quantization_tpu.models import zoo
+        from yoloq.models import zoo
 
         size = 96  # 3x3 region grid (5 stride-2 pools)
         root = str(tmp_path_factory.mktemp("acc_v2"))
@@ -120,10 +120,10 @@ class TestRegionIntegerGate:
         return net, state, list_file
 
     def test_int_engine_tracks_qat_sim(self, trained):
-        from yolo_quantization_tpu.eval.f1 import f1_sweep
-        from yolo_quantization_tpu.infer.convert import convert
-        from yolo_quantization_tpu.infer.engine import Engine
-        from yolo_quantization_tpu.infer.float_engine import (
+        from yoloq.eval.f1 import f1_sweep
+        from yoloq.infer.convert import convert
+        from yoloq.infer.engine import Engine
+        from yoloq.infer.float_engine import (
             FloatEngine,
             QatSimEngine,
         )
@@ -165,7 +165,7 @@ class TestDetectionEndToEndGate:
 
     @pytest.fixture(scope="class")
     def trained(self, tmp_path_factory):
-        from yolo_quantization_tpu.models import zoo
+        from yoloq.models import zoo
 
         size = 192  # 6 stride-2 pools -> side 3
         root = str(tmp_path_factory.mktemp("acc_v1"))
@@ -185,10 +185,10 @@ class TestDetectionEndToEndGate:
         return net, state, list_file
 
     def test_program_engine_holds_float_f1(self, trained):
-        from yolo_quantization_tpu.eval.f1 import f1_sweep
-        from yolo_quantization_tpu.infer.convert import convert
-        from yolo_quantization_tpu.infer.engine import Engine
-        from yolo_quantization_tpu.infer.float_engine import FloatEngine
+        from yoloq.eval.f1 import f1_sweep
+        from yoloq.infer.convert import convert
+        from yoloq.infer.engine import Engine
+        from yoloq.infer.float_engine import FloatEngine
 
         net, state, list_file = trained
         float_best = max(

@@ -13,12 +13,12 @@ import jax
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.models.cfg import parse_cfg
-from yolo_quantization_tpu.models.darknet_weights import (
+from yoloq.models.cfg import parse_cfg
+from yoloq.models.darknet_weights import (
     load_darknet_weights,
     save_darknet_weights,
 )
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.nn.graph import (
     ForwardMode,
     RouteSpec,
     UpsampleSpec,
@@ -92,8 +92,8 @@ def test_first_time_roundtrip_and_engine(flagged_cfg_text, tmp_path):
 
     # multi-input route has no stored range -> engine re-derives it from the
     # QAT state we trained above; convert+forward must succeed
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import build_forward
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import build_forward
 
     qs2 = dict(ckpt.quant_state)
     # first_time multi-route ranges are absent from the file by design;

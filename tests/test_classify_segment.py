@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.nn.graph import (
     AvgPoolSpec,
     ConnectedSpec,
     ConvSpec,
@@ -12,13 +12,13 @@ from yolo_quantization_tpu.nn.graph import (
     NetworkDef,
     SoftmaxSpec,
 )
-from yolo_quantization_tpu.train.classify import (
+from yoloq.train.classify import (
     ClassificationDataset,
     ClassifierTrainer,
     evaluate_top_k,
     label_from_path,
 )
-from yolo_quantization_tpu.train.segment import SegmentationDataset, SegmenterTrainer
+from yoloq.train.segment import SegmentationDataset, SegmenterTrainer
 
 
 def tiny_classifier(classes=3, size=32):

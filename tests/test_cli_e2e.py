@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from yolo_quantization_tpu.cli.main import main
+from yoloq.cli.main import main
 
 
 @pytest.fixture(scope="module")

@@ -51,8 +51,8 @@ def crossf1_setup(tmp_path_factory):
     eval_list = cf.render_dataset(os.path.join(work, "eval"), 6, seed=99)
     train_list = cf.render_dataset(os.path.join(work, "train"), 12, seed=11)
 
-    from yolo_quantization_tpu.models.cfg import load_cfg
-    from yolo_quantization_tpu.models.darknet_weights import (
+    from yoloq.models.cfg import load_cfg
+    from yoloq.models.darknet_weights import (
         save_darknet_weights,
     )
 
@@ -85,9 +85,9 @@ def test_engine_tracks_qat_sim_on_crossf1_files(crossf1_setup):
     simulation on the dumped eval files."""
     cf, net, weights, eval_list, params, qs, _ = crossf1_setup
 
-    from yolo_quantization_tpu.infer.convert import convert
-    from yolo_quantization_tpu.infer.engine import Engine
-    from yolo_quantization_tpu.infer.float_engine import QatSimEngine
+    from yoloq.infer.convert import convert
+    from yoloq.infer.engine import Engine
+    from yoloq.infer.float_engine import QatSimEngine
 
     q_best = cf.best(cf.engine_rows(
         QatSimEngine(net, params, qs, max_det=256), eval_list

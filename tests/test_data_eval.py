@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from yolo_quantization_tpu.data import voc
-from yolo_quantization_tpu.data.image import letterbox, load_image_rgb
-from yolo_quantization_tpu.data.loader import BatchLoader
-from yolo_quantization_tpu.eval import detect
-from yolo_quantization_tpu.eval.f1 import f1_sweep, recall_eval
-from yolo_quantization_tpu.train.loss import MAX_BOXES
+from yoloq.data import voc
+from yoloq.data.image import letterbox, load_image_rgb
+from yoloq.data.loader import BatchLoader
+from yoloq.eval import detect
+from yoloq.eval.f1 import f1_sweep, recall_eval
+from yoloq.train.loss import MAX_BOXES
 
 
 @pytest.fixture(scope="module")
@@ -124,8 +124,8 @@ class TestLoader:
 
 class TestF1Harness:
     def test_sweep_runs_and_counts_consistently(self, mini_dataset):
-        from yolo_quantization_tpu.infer.engine import Engine
-        from yolo_quantization_tpu.models.presets import flagship_program
+        from yoloq.infer.engine import Engine
+        from yoloq.models.presets import flagship_program
 
         engine = Engine(flagship_program(classes=5, size=64), max_det=32)
         rows = f1_sweep(engine, mini_dataset, thresholds=(0.1, 0.5))
@@ -138,35 +138,10 @@ class TestF1Harness:
         assert rows[1].tp_fp <= rows[0].tp_fp
 
     def test_recall_eval_runs(self, mini_dataset):
-        from yolo_quantization_tpu.infer.engine import Engine
-        from yolo_quantization_tpu.models.presets import flagship_program
+        from yoloq.infer.engine import Engine
+        from yoloq.models.presets import flagship_program
 
         engine = Engine(flagship_program(classes=5, size=64), max_det=32)
         out = recall_eval(engine, mini_dataset, max_images=2)
         assert set(out) == {"recall", "avg_iou", "proposals_per_image", "total_truths"}
         assert out["total_truths"] == 2
-
-
-class TestApproxTopK:
-    def test_approx_topk_engine_mode(self):
-        """approx_max_k prefilter: valid output shapes, and the confident
-        detections (high objectness) survive vs the exact engine."""
-        import numpy as np
-
-        from yolo_quantization_tpu.infer.engine import Engine
-        from yolo_quantization_tpu.models.presets import flagship_program
-
-        program = flagship_program(classes=3, size=96)
-        rng = np.random.default_rng(6)
-        x = rng.uniform(0, 1, (2, 96, 96, 3)).astype(np.float32)
-        exact = Engine(program, max_det=32)
-        approx = Engine(program, max_det=32, approx_topk=True)
-        be, oe, _ = exact.predict(x)
-        ba, oa, _ = approx.predict(x)
-        assert ba.shape == be.shape
-        # every exact detection clearly above noise must appear in the
-        # approx set (recall_target 0.97 applies to the tail, not the head)
-        for n in range(len(x)):
-            strong = oe[n][oe[n] > oe[n].max() * 0.9]
-            for v in strong:
-                assert np.isclose(oa[n], v, atol=1e-6).any()

@@ -78,10 +78,10 @@ def test_matches_single_process(worker_results):
     bitwise-agree across processes)."""
     import jax
 
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.parallel import mesh as pmesh
-    from yolo_quantization_tpu.train.loss import MAX_BOXES
-    from yolo_quantization_tpu.train.qat import (
+    from yoloq.models import zoo
+    from yoloq.parallel import mesh as pmesh
+    from yoloq.train.loss import MAX_BOXES
+    from yoloq.train.qat import (
         TrainConfig, init_train_state, make_train_step,
     )
 
@@ -116,7 +116,7 @@ def test_explicit_coordinator_failure_is_loud():
         "import os, jax\n"
         "jax.config.update('jax_platforms', 'cpu')\n"
         "import sys; sys.path.insert(0, %r)\n"
-        "from yolo_quantization_tpu.parallel import distributed\n"
+        "from yoloq.parallel import distributed\n"
         "try:\n"
         "    distributed.initialize('localhost:9', 2, 1, initialization_timeout=5)\n"
         "except Exception as e:\n"

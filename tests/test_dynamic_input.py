@@ -12,13 +12,13 @@ import jax
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.infer.engine import (
+from yoloq.infer.engine import (
     _dynamic_input_qp,
     _quantize_input_dynamic,
     build_forward,
 )
-from yolo_quantization_tpu.models.presets import flagship_program
-from yolo_quantization_tpu.parity import ctwin
+from yoloq.models.presets import flagship_program
+from yoloq.parity import ctwin
 
 
 @pytest.fixture(scope="module")
@@ -174,10 +174,40 @@ class TestUint8Input:
             assert np.isfinite(np.asarray(h)).all()
 
     def test_engine_predict_accepts_u8(self, program):
-        from yolo_quantization_tpu.infer.engine import Engine
+        from yoloq.infer.engine import Engine
 
         eng = Engine(program, max_det=16)
         rng = np.random.default_rng(5)
         u8 = rng.integers(0, 256, (1, 96, 96, 3)).astype(np.uint8)
         b, o, c = eng.predict(u8)
         assert b.shape == (1, 16, 4) and np.isfinite(b).all()
+
+
+@pytest.mark.parametrize(
+    "case", ["pixels_over_scale", "signed", "wide_exponents", "exact_and_ties"]
+)
+def test_div_rn_is_ieee_division(case):
+    """engine._div_rn (the dynamic-input quotients) is float32 division
+    rounded to nearest even, bit for bit, whatever the backend's own
+    division does."""
+    from yoloq.infer.engine import _div_rn
+
+    rng = np.random.default_rng(11)
+    n = 1 << 16
+    if case == "pixels_over_scale":
+        a = rng.uniform(0, 1, n)
+        b = np.full(n, 0.0039215) * rng.uniform(0.5, 2, n)
+    elif case == "signed":
+        a, b = rng.uniform(-10, 10, n), rng.uniform(0.01, 3, n) * rng.choice([-1, 1], n)
+    elif case == "wide_exponents":
+        a = rng.uniform(-1e3, 1e3, n) * 10.0 ** rng.integers(-15, 15, n)
+        b = rng.uniform(0.1, 9, n) * 10.0 ** rng.integers(-15, 15, n)
+    else:  # exact quotients, and halves that a quantizer rounds at
+        b = rng.uniform(0.001, 1, n)
+        a = np.concatenate([rng.integers(1, 1 << 20, n // 2) * b[: n // 2],
+                            (rng.integers(0, 255, n // 2) + 0.5) * np.float32(0.25)])
+        b[n // 2:] = 0.25
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    got = np.asarray(jax.jit(_div_rn)(a, b))
+    np.testing.assert_array_equal(got.view(np.uint32), (a / b).view(np.uint32))
+    assert np.asarray(_div_rn(np.float32(0.0), np.float32(3.0))) == 0.0

@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.eval import detect
-from yolo_quantization_tpu.infer.convert import convert
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.models import zoo
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.eval import detect
+from yoloq.infer.convert import convert
+from yoloq.infer.engine import Engine
+from yoloq.models import zoo
+from yoloq.nn.graph import (
     ForwardMode,
     YoloSpec,
     forward,
@@ -114,18 +114,6 @@ class TestIntegerEngineParity:
                 f"head {idx}: max err {err.max():.4f} vs scale {out_scale:.4f}"
             )
 
-    def test_int16_carrier_bit_identical(self, tiny_with_ranges):
-        """The whole-network int16 engine (reference MKL backend analog,
-        src/convolutional_layer.c:528-605) must match the int8 engine
-        bit-for-bit on every head."""
-        net, params, qs = tiny_with_ranges
-        program = convert(net, params, qs)
-        x = np.random.default_rng(7).uniform(0, 1, (1, 160, 160, 3)).astype(np.float32)
-        h8 = Engine(program).raw_heads(x)
-        h16 = Engine(program, carrier="int16").raw_heads(x)
-        for a, b in zip(h8, h16):
-            np.testing.assert_array_equal(a, b)
-
     def test_decode_and_nms_run(self, tiny_with_ranges):
         net, params, qs = tiny_with_ranges
         program = convert(net, params, qs)
@@ -147,3 +135,43 @@ class TestIntegerEngineParity:
         assert len(route_cfg.branches) == 2
         # at least the scales were tracked and finite
         assert route_cfg.out_scale > 0
+
+
+def _conv_precisions(lowered) -> list[str]:
+    import re
+
+    return re.findall(r"stablehlo\.convolution.*precision (\w+)>\]", lowered.as_text())
+
+
+class TestReferencePrecision:
+    """The float references pin every conv to full f32 ("highest"); the
+    training step keeps the default, which a GPU may run in TF32."""
+
+    def test_float_and_qat_sim_engines_pin_highest(self, tiny_with_ranges):
+        from yoloq.infer.float_engine import FloatEngine, QatSimEngine
+
+        net, params, qs = tiny_with_ranges
+        x = jnp.zeros((1, 160, 160, 3))
+        f = FloatEngine(net, params)
+        s = QatSimEngine(net, params, qs)
+        for lowered in (f._raw.lower(f.params, x), f._run.lower(f.params, x),
+                        s._run.lower(s.params, x)):
+            precisions = _conv_precisions(lowered)
+            assert len(precisions) == 13  # yolov3-tiny's convs
+            assert set(precisions) == {"HIGHEST"}
+
+    def test_train_step_keeps_default_precision(self, tiny):
+        from yoloq.train.loss import MAX_BOXES
+        from yoloq.train.qat import (
+            TrainConfig,
+            init_train_state,
+            make_train_step,
+        )
+
+        net, _ = tiny
+        cfg = TrainConfig(quant_start_step=0, donate_state=False)
+        state = init_train_state(net, cfg, jax.random.PRNGKey(0))
+        step = make_train_step(net, cfg, qat=True)
+        lowered = step.lower(state, jnp.zeros((1, 160, 160, 3)),
+                             jnp.zeros((1, MAX_BOXES, 5)))
+        assert set(_conv_precisions(lowered)) == {"DEFAULT"}

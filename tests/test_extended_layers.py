@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.eval import detect
-from yolo_quantization_tpu.models import zoo
-from yolo_quantization_tpu.nn import layers as L
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.eval import detect
+from yoloq.models import zoo
+from yoloq.nn import layers as L
+from yoloq.nn.graph import (
     ActivationSpec,
     AvgPoolSpec,
     BatchNormSpec,
@@ -88,7 +88,7 @@ class TestSimpleLayers:
         x = jnp.asarray(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))
         heads, _ = forward(net, params, x)
         # softmax output is the last layer's output; re-run to fetch it
-        from yolo_quantization_tpu.nn.graph import apply_simple_layer  # noqa
+        from yoloq.nn.graph import apply_simple_layer  # noqa
 
         # direct check through shapes
         shapes = net.shapes()
@@ -155,13 +155,13 @@ class TestRegionHead:
         assert heads[0].shape == (1, 4, 4, 40)
 
     def test_region_loss_gradients(self):
-        from yolo_quantization_tpu.train.loss import MAX_BOXES, region_head_loss
+        from yoloq.train.loss import MAX_BOXES, region_head_loss
 
         rng = np.random.default_rng(0)
         raw = jnp.asarray(rng.normal(0, 0.1, (1, 4, 4, 5 * 8)).astype(np.float32))
         # apply region forward activations first
         spec = RegionSpec(anchors=zoo.VOC_V2_TINY_ANCHORS, classes=3, num=5)
-        from yolo_quantization_tpu.nn.graph import apply_simple_layer
+        from yoloq.nn.graph import apply_simple_layer
 
         truths = np.zeros((1, MAX_BOXES, 5), np.float32)
         truths[0, 0] = [0.5, 0.5, 0.3, 0.4, 1.0]
@@ -191,7 +191,7 @@ class TestDetectionHead:
 
 class TestExtendedWeightsIO:
     def test_roundtrip_classifier_with_connected(self, tmp_path):
-        from yolo_quantization_tpu.models.darknet_weights import (
+        from yoloq.models.darknet_weights import (
             load_darknet_weights,
             save_darknet_weights,
         )

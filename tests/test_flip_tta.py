@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.eval.detect import flip_average_head
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.models.presets import flagship_program
+from yoloq.eval.detect import flip_average_head
+from yoloq.infer.engine import Engine
+from yoloq.models.presets import flagship_program
 
 
 def _avg_flipped_yolo_c(out, flip, classes, num):
@@ -70,9 +70,9 @@ def test_float_engine_flip_tta():
     fallback path, so valid2/valid work on float checkpoints too."""
     import jax
 
-    from yolo_quantization_tpu.infer.float_engine import FloatEngine
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.nn.graph import init_params
+    from yoloq.infer.float_engine import FloatEngine
+    from yoloq.models import zoo
+    from yoloq.nn.graph import init_params
 
     net = zoo.yolov3_tiny(classes=5, width=128, height=128)
     params = init_params(jax.random.PRNGKey(0), net)

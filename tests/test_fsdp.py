@@ -9,11 +9,11 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from yolo_quantization_tpu.models import zoo
-from yolo_quantization_tpu.parallel import fsdp
-from yolo_quantization_tpu.parallel import mesh as pmesh
-from yolo_quantization_tpu.train.loss import MAX_BOXES
-from yolo_quantization_tpu.train.qat import (
+from yoloq.models import zoo
+from yoloq.parallel import fsdp
+from yoloq.parallel import mesh as pmesh
+from yoloq.train.loss import MAX_BOXES
+from yoloq.train.qat import (
     TrainConfig,
     init_train_state,
     make_train_step,
@@ -94,7 +94,7 @@ class TestFSDPCli:
         completes a short run (the CLI wiring over parallel/fsdp.py)."""
         from PIL import Image
 
-        from yolo_quantization_tpu.cli.main import main
+        from yoloq.cli.main import main
 
         (tmp_path / "images").mkdir()
         (tmp_path / "labels").mkdir()

@@ -21,11 +21,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.core.quant import fake_quant, nudge_min_max
-from yolo_quantization_tpu.infer.convert import convert
-from yolo_quantization_tpu.infer.engine import build_forward
-from yolo_quantization_tpu.models.presets import synthetic_quant_state
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.core.quant import fake_quant, nudge_min_max
+from yoloq.infer.convert import convert
+from yoloq.infer.engine import build_forward
+from yoloq.models.presets import synthetic_quant_state
+from yoloq.nn.graph import (
     ConvSpec,
     ForwardMode,
     NetworkDef,
@@ -186,7 +186,7 @@ def test_engine_tracks_qat_forward_whole_graph():
     net6 = dataclasses.replace(net, specs=net.specs[:7])
     heads, _ = forward(net6, params_j, jnp.asarray(x), mode, qs)
     # no heads in the truncated net; recompute via explicit loop instead
-    from yolo_quantization_tpu.nn import layers as L
+    from yoloq.nn import layers as L
 
     # manual float/QAT replay
     sim_x = jnp.asarray(x)
@@ -195,7 +195,7 @@ def test_engine_tracks_qat_forward_whole_graph():
     sim_outputs = []
     for i, s in enumerate(net.specs):
         if isinstance(s, ConvSpec):
-            from yolo_quantization_tpu.nn.graph import _conv_forward
+            from yoloq.nn.graph import _conv_forward
 
             sim_x, _, _ = _conv_forward(
                 s, params_j[i], sim_x, mode, qs.get(f"act_{i}")

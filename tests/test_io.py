@@ -1,17 +1,19 @@
 """cfg importer and darknet weights serialization tests."""
 
+import os
+
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.models import zoo
-from yolo_quantization_tpu.models.cfg import load_cfg, parse_cfg
-from yolo_quantization_tpu.models.darknet_weights import (
+from yoloq.models import zoo
+from yoloq.models.cfg import load_cfg, parse_cfg
+from yoloq.models.darknet_weights import (
     load_darknet_weights,
     save_darknet_weights,
     _layout_size,
 )
-from yolo_quantization_tpu.models.presets import synthetic_quant_state
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.models.presets import synthetic_quant_state
+from yoloq.nn.graph import (
     ConvSpec,
     MaxPoolSpec,
     RouteSpec,
@@ -23,9 +25,16 @@ from yolo_quantization_tpu.nn.graph import (
 REF_CFG = "/root/reference/cfg/yolov3_tiny_quant_channelwise.cfg"
 
 
+@pytest.fixture
+def ref_cfg():
+    if not os.path.exists(REF_CFG):
+        pytest.skip("reference cfg not present")
+    return REF_CFG
+
+
 class TestCfgImporter:
-    def test_reference_cfg_matches_zoo_builder(self):
-        net, train_cfg = load_cfg(REF_CFG)
+    def test_reference_cfg_matches_zoo_builder(self, ref_cfg):
+        net, train_cfg = load_cfg(ref_cfg)
         ours = zoo.yolov3_tiny(classes=5, activation="relu6",
                                anchors=zoo.NOK_TINY_ANCHORS)
         assert len(net.specs) == len(ours.specs) == 24
@@ -41,8 +50,8 @@ class TestCfgImporter:
         assert net.specs[16].anchors == zoo.NOK_TINY_ANCHORS
         assert net.width == 416 and net.height == 416
 
-    def test_train_options(self):
-        _, tc = load_cfg(REF_CFG)
+    def test_train_options(self, ref_cfg):
+        _, tc = load_cfg(ref_cfg)
         assert tc.learning_rate == pytest.approx(0.001)
         assert tc.burn_in == 1000
         assert tc.quant_start_step == 10000
@@ -105,7 +114,7 @@ class TestDarknetWeights:
         save_darknet_weights(path, net, params, qs)
         ckpt = load_darknet_weights(path, net)
         # re-converting from the recovered ranges must give identical programs
-        from yolo_quantization_tpu.infer.convert import convert
+        from yoloq.infer.convert import convert
 
         p1 = convert(net, params, qs)
         p2 = convert(net, ckpt.params, ckpt.quant_state)
@@ -123,7 +132,7 @@ class TestDarknetWeights:
         path = str(tmp_path / "w.weights")
         save_darknet_weights(path, net, params, qs)
         ckpt = load_darknet_weights(path, net)
-        from yolo_quantization_tpu.infer.convert import convert
+        from yoloq.infer.convert import convert
 
         prog = convert(net, params, qs)
         w_u8_file = ckpt.raw_quant[0]["weights_u8"]        # OIHW uint8

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.infer.convert import convert
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.nn.graph import (
+from yoloq.infer.convert import convert
+from yoloq.infer.engine import Engine
+from yoloq.nn.graph import (
     ConvSpec,
     ForwardMode,
     MaxPoolSpec,

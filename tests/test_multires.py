@@ -9,11 +9,11 @@ device-resident arrays and caches it.
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.infer.float_engine import FloatEngine
-from yolo_quantization_tpu.models.presets import flagship_program
-from yolo_quantization_tpu.models.zoo import yolov3_tiny
-from yolo_quantization_tpu.nn.graph import init_params_numpy
+from yoloq.infer.engine import Engine
+from yoloq.infer.float_engine import FloatEngine
+from yoloq.models.presets import flagship_program
+from yoloq.models.zoo import yolov3_tiny
+from yoloq.nn.graph import init_params_numpy
 
 
 @pytest.fixture(scope="module")

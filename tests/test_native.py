@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.data.image import letterbox as np_letterbox
-from yolo_quantization_tpu.eval import detect
-from yolo_quantization_tpu.utils import native
+from yoloq.data.image import letterbox as np_letterbox
+from yoloq.eval import detect
+from yoloq.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable (no toolchain)"
@@ -128,7 +128,7 @@ class TestImageDecode:
         assert native.decode_image(p) is None
 
     def test_load_image_rgb_uses_native_path(self, rng, tmp_path):
-        from yolo_quantization_tpu.data.image import load_image_rgb
+        from yoloq.data.image import load_image_rgb
 
         arr = (rng.uniform(0, 1, (20, 30, 3)) * 255).astype(np.uint8)
         from PIL import Image
@@ -159,7 +159,7 @@ class TestAugmentPlace:
         ],
     )
     def test_matches_numpy(self, rng, nw, nh, dx, dy, dhue, dsat, dexp, flip):
-        from yolo_quantization_tpu.data.voc import place_distort_flip_numpy
+        from yoloq.data.voc import place_distort_flip_numpy
 
         im = rng.uniform(0, 1, (57, 71, 3)).astype(np.float32)
         got = native.augment_place(im, 80, 64, nw, nh, dx, dy, dhue, dsat, dexp, flip)
@@ -170,7 +170,7 @@ class TestAugmentPlace:
     def test_augment_detection_end_to_end(self, rng, tmp_path):
         """Whole augment_detection goes through the native kernel and still
         produces valid boxes."""
-        from yolo_quantization_tpu.data.voc import augment_detection
+        from yoloq.data.voc import augment_detection
 
         im = rng.uniform(0, 1, (80, 120, 3)).astype(np.float32)
         boxes = np.array([[1, 0.5, 0.5, 0.6, 0.6]], np.float32)

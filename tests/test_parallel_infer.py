@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from yolo_quantization_tpu.infer.engine import build_forward
-from yolo_quantization_tpu.models.presets import flagship_program
-from yolo_quantization_tpu.parallel import distributed, mesh as pmesh
+from yoloq.infer.engine import build_forward
+from yoloq.models.presets import flagship_program
+from yoloq.parallel import distributed, mesh as pmesh
 
 
 class TestShardedInference:

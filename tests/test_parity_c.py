@@ -4,10 +4,10 @@ Builds the reference C sources out-of-tree (scripts/build_reference.sh),
 exports a checkpoint through our serializer, runs the reference via
 native/parity_shim.c on its own test image, and asserts:
 
-  tier 1 — the numpy C-twin (yolo_quantization_tpu/parity/ctwin.py) matches
+  tier 1 — the numpy C-twin (yoloq/parity/ctwin.py) matches
            the compiled binary BYTE-FOR-BYTE on every quantized layer output,
            bit-for-bit on the quant_stop dequants, and to 1e-4 on detections;
-  tier 2 — the TPU integer engine (rounding epilogue) stays within small LSB
+  tier 2 — the integer engine (rounding epilogue) stays within small LSB
            deltas per layer and produces the SAME TP/FP/FN under the
            detector-f1 counting protocol (examples/detector.c:805-854).
 

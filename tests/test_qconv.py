@@ -1,4 +1,4 @@
-"""Golden tests: TPU integer conv vs a numpy transcription of the reference.
+"""Golden tests: the integer conv vs a numpy transcription of the reference.
 
 The numpy model below independently re-implements the reference's uint8 conv
 pipeline in darknet layouts (NCHW / OIHW):
@@ -17,8 +17,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from yolo_quantization_tpu.core import nudge_min_max, quantize, quantize_multiplier
-from yolo_quantization_tpu.ops.qconv import (
+from yoloq.core import nudge_min_max, quantize, quantize_multiplier
+from yoloq.models.presets import distinct_conv_shapes
+from yoloq.ops.qconv import (
     ACT_LEAKY,
     ACT_LINEAR,
     ACT_RELU6,
@@ -167,51 +168,151 @@ class TestQuantizedConvOutput:
         assert (diff <= 1).mean() == 1.0
         assert (diff == 0).mean() > 0.4, f"only {(diff == 0).mean():.2%} exact"
 
-class TestInt16Carrier:
-    """The int16 carrier (reference MKL s16s16s32 backend,
-    src/convolutional_layer.c:528-605) runs the same 8-bit codes through
-    16-bit contractions — every bit of the output must match the int8 path."""
+def ref_conv_nhwc(x_u8, w_i8, bias_i32, m, x_zp_i8, out_zp, stride, pad, act):
+    """The layer's full integer semantics in numpy, per image through the
+    reference's im2col: int64 accumulator of the shifted codes, then the
+    engine's float32 epilogue (requant_activate) op for op."""
+    n = x_u8.shape[0]
+    kh, _, ci, co = w_i8.shape
+    a = np.asarray(w_i8, np.int64).reshape(kh * kh * ci, co)
+    # im2col rows are (c, ky, kx); HWIO weights flatten as (ky, kx, c)
+    a = a.reshape(kh, kh, ci, co).transpose(2, 0, 1, 3).reshape(ci * kh * kh, co)
+    outs = []
+    for b in range(n):
+        x_i8 = x_u8[b].astype(np.int64).transpose(2, 0, 1) - 128
+        cols, oh, ow = ref_im2col_u8(x_i8, kh, stride, pad, x_zp_i8)
+        acc = (a.T @ cols).reshape(co, oh, ow).transpose(1, 2, 0)
+        vf = (acc + bias_i32).astype(np.float32) * m
+        if act == ACT_LEAKY:
+            v = np.round(np.where(vf < 0, vf * np.float32(0.1), vf))
+        else:
+            v = np.round(vf)
+        lo = max(out_zp, 0) if act == ACT_RELU6 else 0
+        outs.append(np.clip(v + np.float32(out_zp), lo, 255).astype(np.uint8))
+    return np.stack(outs)
 
-    @pytest.mark.parametrize("symmetric", [True, False])
-    @pytest.mark.parametrize("stride,pad,K", [(1, 1, 3), (2, 0, 1)])
-    def test_bit_identical_to_int8_path(self, rng, symmetric, stride, pad, K):
-        case = make_case(rng, stride=stride, pad=pad, K=K)
-        x_u8 = jnp.asarray(case["x_u8"].transpose(1, 2, 0))[None]
-        w_u8 = case["w_u8"].transpose(2, 3, 1, 0)
-        w_i8 = np.asarray(u8_to_i8(jnp.asarray(w_u8)))
-        x_zp = jnp.int32(case["zp_in"] - 128)
-        w_zp = jnp.asarray(case["zp_w"].astype(np.int32) - 128)
-        if symmetric:
-            # re-center weights so zp==0, as convert(symmetric_weights=True)
-            w_i8 = np.clip(
-                w_i8.astype(np.int32) - np.asarray(w_zp), -127, 127
-            ).astype(np.int8)
-            w_zp = jnp.zeros_like(w_zp)
-        bias_i32 = fold_static_bias(
-            jnp.asarray(case["bias"]), jnp.float32(case["s_in"]),
-            jnp.asarray(case["s_w"]), x_zp, w_zp, jnp.asarray(w_i8),
-        )
-        m = jnp.asarray(case["s_in"] * case["s_w"] / case["s_out"], jnp.float32)
-        kw = dict(stride=stride, pad=pad, act=ACT_LEAKY, symmetric=symmetric)
-        out8 = quantized_conv2d(
-            x_u8, jnp.asarray(w_i8), bias_i32, m, x_zp, w_zp,
-            jnp.int32(case["zp_out"]), **kw,
-        )
-        out16 = quantized_conv2d(
-            x_u8, jnp.asarray(w_i8), bias_i32, m, x_zp, w_zp,
-            jnp.int32(case["zp_out"]), carrier="int16", **kw,
-        )
-        np.testing.assert_array_equal(np.asarray(out8), np.asarray(out16))
 
-    def test_unknown_carrier_rejected(self, rng):
-        case = make_case(rng)
-        with pytest.raises(ValueError, match="carrier"):
-            quantized_conv2d(
-                jnp.asarray(case["x_u8"].transpose(1, 2, 0))[None],
-                jnp.zeros((3, 3, 4, 8), jnp.int8), jnp.zeros(8, jnp.int32),
-                jnp.ones(8, jnp.float32), jnp.int32(0), jnp.zeros(8, jnp.int32),
-                jnp.int32(0), stride=1, pad=1, carrier="int4",
-            )
+def ref_maxpool2_nhwc(y):
+    """darknet 2x2/s2 maxpool with padding 1 (size-1): a trailing odd row or
+    column pools alone."""
+    n, h, w, c = y.shape
+    oh, ow = (h + 1 - 2) // 2 + 1, (w + 1 - 2) // 2 + 1
+    out = np.zeros((n, oh, ow, c), y.dtype)
+    for i in range(oh):
+        for j in range(ow):
+            out[:, i, j] = y[:, 2 * i:2 * i + 2, 2 * j:2 * j + 2].max(axis=(1, 2))
+    return out
+
+
+def make_layer(rng, n=1, h=13, ci=32, co=64, k=3):
+    x = rng.integers(0, 256, (n, h, h, ci), dtype=np.uint8)
+    w = rng.integers(-127, 128, (k, k, ci, co)).astype(np.int8)
+    bias = rng.integers(-(2**14), 2**14, (co,)).astype(np.int32)
+    m = rng.uniform(1e-4, 5e-3, (co,)).astype(np.float32)
+    return x, w, bias, m
+
+
+def run_layer(x, w, bias, m, x_zp, out_zp, pad, act):
+    co = w.shape[-1]
+    return np.asarray(quantized_conv2d(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), jnp.asarray(m),
+        jnp.int32(x_zp), jnp.zeros((co,), jnp.int32), jnp.int32(out_zp),
+        stride=1, pad=pad, act=act, symmetric=True,
+    ))
+
+
+class TestLayerShapes:
+    """The XLA conv layer against the im2col reference, bit for bit, over
+    channel counts that are not multiples of 4 or 8, odd spatial sizes and
+    the fused-pool consumer."""
+
+    @pytest.mark.parametrize(
+        "h,ci,co,k,pad,act",
+        [
+            (13, 32, 64, 3, 1, ACT_LEAKY),
+            (13, 256, 30, 1, 0, ACT_LINEAR),
+            (26, 16, 48, 3, 1, ACT_RELU6),
+            (20, 8, 130, 3, 1, ACT_LINEAR),
+            (52, 16, 32, 3, 1, ACT_RELU6),
+            (72, 8, 16, 3, 1, ACT_LINEAR),
+            (96, 12, 24, 3, 1, ACT_LEAKY),
+        ],
+    )
+    def test_matches_im2col_reference(self, rng, h, ci, co, k, pad, act):
+        x, w, bias, m = make_layer(rng, h=h, ci=ci, co=co, k=k)
+        got = run_layer(x, w, bias, m, 7, 111, pad, act)
+        want = ref_conv_nhwc(x, w, bias, m, 7, 111, 1, pad, act)
+        np.testing.assert_array_equal(got, want)
+
+    def test_batch_dimension(self, rng):
+        x, w, bias, m = make_layer(rng, n=3, h=13, ci=16, co=32)
+        got = run_layer(x, w, bias, m, -3, 90, 1, ACT_LEAKY)
+        want = ref_conv_nhwc(x, w, bias, m, -3, 90, 1, 1, ACT_LEAKY)
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("h", [16, 15])  # 15: odd map, lone last row
+    def test_conv_then_pool(self, rng, h):
+        from yoloq.nn.layers import maxpool_u8
+
+        x, w, bias, m = make_layer(rng, h=h, ci=16, co=32, k=3)
+        y = run_layer(x, w, bias, m, 5, 100, 1, ACT_LEAKY)
+        got = np.asarray(maxpool_u8(jnp.asarray(y), 2, 2, 1))
+        want = ref_maxpool2_nhwc(ref_conv_nhwc(x, w, bias, m, 5, 100, 1, 1, ACT_LEAKY))
+        np.testing.assert_array_equal(got, want)
+
+
+def _shape_id(t):
+    return "h{}_c{}_o{}_k{}_s{}".format(*t[:5])
+
+
+class TestConvShapes:
+    """conv_acc_int32 (im2col GEMM) against XLA's own integer convolution,
+    over every distinct conv shape of yolov3-tiny and yolov3 with the
+    spatial size cut to 7 (odd, so stride 2 meets an unpaired edge)."""
+
+    @pytest.mark.parametrize(
+        "shape", distinct_conv_shapes(416), ids=_shape_id
+    )
+    def test_acc_matches_lax_conv(self, shape):
+        from jax import lax
+
+        _, ci, co, k, stride, pad = shape
+        rng = np.random.default_rng(ci * 131 + co * 7 + k + stride)
+        x = jnp.asarray(rng.integers(-128, 128, (1, 7, 7, ci), dtype=np.int8))
+        w = jnp.asarray(rng.integers(-128, 128, (k, k, ci, co), dtype=np.int8))
+        w_zp = jnp.asarray(rng.integers(-20, 20, co).astype(np.int32))
+        x_zp = jnp.int32(-7)
+        got = np.asarray(conv_acc_int32(x, w, x_zp, w_zp, stride, pad))
+        xp = jnp.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                     constant_values=jnp.int8(-7))
+        dn = ("NHWC", "HWIO", "NHWC")
+        conv = lax.conv_general_dilated(
+            xp, w, (stride, stride), "VALID", dimension_numbers=dn,
+            preferred_element_type=jnp.int32,
+        )
+        patch = lax.conv_general_dilated(
+            xp, jnp.ones((k, k, ci, 1), jnp.int8), (stride, stride), "VALID",
+            dimension_numbers=dn, preferred_element_type=jnp.int32,
+        )
+        want = np.asarray(conv - w_zp * patch)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_acc_on_gpu_matches_cpu(gpu_device):
+    """The GPU's int8 GEMMs give the CPU's accumulators bit for bit
+    (chip_smoke.py checks every shape at full size)."""
+    import jax
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(-128, 128, (2, 13, 13, 3), dtype=np.int8)
+    w = rng.integers(-128, 128, (3, 3, 3, 16), dtype=np.int8)
+    w_zp = rng.integers(-20, 20, 16).astype(np.int32)
+    args = (x, w, np.int32(-7), w_zp)
+    fn = jax.jit(lambda x, w, zx, zw: conv_acc_int32(x, w, zx, zw, 1, 1))
+    got = np.asarray(fn(*jax.device_put(args, gpu_device)))
+    want = np.asarray(fn(*jax.device_put(args, jax.devices("cpu")[0])))
+    np.testing.assert_array_equal(got, want)
 
 
 def conv2d_nchw(x, w, bias, stride, pad):
@@ -249,7 +350,7 @@ class TestExactLeaky:
         single-rounded epilogue deviates from (deviation 8)."""
         import jax.numpy as jnp
 
-        from yolo_quantization_tpu.ops.qconv import ACT_LEAKY, requant_activate
+        from yoloq.ops.qconv import ACT_LEAKY, requant_activate
 
         rng = np.random.default_rng(0)
         acc = jnp.asarray(rng.integers(-20000, 20000, (1, 4, 4, 8)), jnp.int32)
@@ -273,7 +374,7 @@ class TestExactLeaky:
     def test_single_vs_double_round_differ_by_at_most_one(self):
         import jax.numpy as jnp
 
-        from yolo_quantization_tpu.ops.qconv import ACT_LEAKY, requant_activate
+        from yoloq.ops.qconv import ACT_LEAKY, requant_activate
 
         rng = np.random.default_rng(1)
         acc = jnp.asarray(rng.integers(-20000, 0, (1, 8, 8, 4)), jnp.int32)

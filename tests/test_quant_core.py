@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.core import (
+from yoloq.core import (
     QUANT_MAX,
     QUANT_MIN,
     QuantParams,

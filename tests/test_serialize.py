@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.infer.serialize import load_program, save_program
-from yolo_quantization_tpu.models.presets import flagship_program
+from yoloq.infer.engine import Engine
+from yoloq.infer.serialize import load_program, save_program
+from yoloq.models.presets import flagship_program
 
 
 class TestProgramSerialization:

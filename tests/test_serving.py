@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.infer.serving import Server
-from yolo_quantization_tpu.models.presets import flagship_program
+from yoloq.infer.engine import Engine
+from yoloq.infer.serving import Server
+from yoloq.models.presets import flagship_program
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +77,8 @@ class TestBucketLadder:
     def test_smallest_bucket_selected(self):
         from concurrent.futures import Future
 
-        from yolo_quantization_tpu.infer import serving
-        from yolo_quantization_tpu.models.presets import flagship_network
+        from yoloq.infer import serving
+        from yoloq.models.presets import flagship_network
 
         net = flagship_network(classes=3, size=96)
         rec = []
@@ -105,8 +105,8 @@ class TestBucketLadder:
             server.close()
 
     def test_uint8_io_stages_uint8(self):
-        from yolo_quantization_tpu.infer import serving
-        from yolo_quantization_tpu.models.presets import flagship_network
+        from yoloq.infer import serving
+        from yoloq.models.presets import flagship_network
 
         net = flagship_network(classes=3, size=96)
         rec = []
@@ -146,8 +146,8 @@ class TestShutdown:
         import time as _time
         from concurrent.futures import Future
 
-        from yolo_quantization_tpu.infer import serving
-        from yolo_quantization_tpu.models.presets import flagship_network
+        from yoloq.infer import serving
+        from yoloq.models.presets import flagship_network
 
         net = flagship_network(classes=3, size=96)
         release = threading.Event()
@@ -210,7 +210,7 @@ class TestBacklogBatching:
 
         import numpy as np
 
-        from yolo_quantization_tpu.infer import serving
+        from yoloq.infer import serving
 
         class SlowStubEngine:
             """predict_async returns instantly; resolve blocks — models a
@@ -236,7 +236,7 @@ class TestBacklogBatching:
 
                 return resolve
 
-        from yolo_quantization_tpu.models.presets import flagship_network
+        from yoloq.models.presets import flagship_network
 
         net = flagship_network(classes=3, size=96)
         eng = SlowStubEngine(net)

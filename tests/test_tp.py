@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.models.presets import flagship_program
-from yolo_quantization_tpu.parallel.tp import run_tp, shard_arrays_tp
-from yolo_quantization_tpu.parallel.mesh import make_mesh
+from yoloq.infer.engine import Engine
+from yoloq.models.presets import flagship_program
+from yoloq.parallel.tp import run_tp, shard_arrays_tp
+from yoloq.parallel.mesh import make_mesh
 
 
 class TestTensorParallel:
@@ -40,9 +40,9 @@ class TestTpEngine:
         decode + top-k) == the plain Engine, bitwise (VERDICT r2 weak 5)."""
         import numpy as np
 
-        from yolo_quantization_tpu.infer.engine import Engine
-        from yolo_quantization_tpu.models.presets import flagship_program
-        from yolo_quantization_tpu.parallel.tp import make_tp_engine
+        from yoloq.infer.engine import Engine
+        from yoloq.models.presets import flagship_program
+        from yoloq.parallel.tp import make_tp_engine
 
         program = flagship_program(classes=3, size=96)
         rng = np.random.default_rng(5)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.models import zoo
-from yolo_quantization_tpu.parallel import mesh as pmesh
-from yolo_quantization_tpu.train.loss import MAX_BOXES, total_loss, yolo_head_loss
-from yolo_quantization_tpu.train.qat import TrainConfig, Trainer, make_train_step, init_train_state
-from yolo_quantization_tpu.nn.graph import ForwardMode, forward
+from yoloq.models import zoo
+from yoloq.parallel import mesh as pmesh
+from yoloq.train.loss import MAX_BOXES, total_loss, yolo_head_loss
+from yoloq.train.qat import TrainConfig, Trainer, make_train_step, init_train_state
+from yoloq.nn.graph import ForwardMode, forward
 
 
 def make_truths(batch, boxes):
@@ -219,7 +219,7 @@ class TestLRPolicies:
         raise ValueError(p)
 
     def test_all_policies_match_reference(self):
-        from yolo_quantization_tpu.train.qat import TrainConfig, lr_schedule
+        from yoloq.train.qat import TrainConfig, lr_schedule
 
         cases = [
             TrainConfig(policy="constant", burn_in=100),
@@ -239,7 +239,7 @@ class TestLRPolicies:
                 assert got == pytest.approx(want, rel=1e-4), (cfg.policy, step)
 
     def test_random_policy_bounded_and_deterministic(self):
-        from yolo_quantization_tpu.train.qat import TrainConfig, lr_schedule
+        from yoloq.train.qat import TrainConfig, lr_schedule
 
         cfg = TrainConfig(policy="random", power=2.0, burn_in=0, learning_rate=0.1)
         lr = lr_schedule(cfg)
@@ -271,7 +271,7 @@ class TestR4TrainingOptions:
     def test_percentile_ranges_clip_outliers(self):
         """range_stat='percentile' must learn a much tighter activation range
         than raw min/max when the batch carries a single huge outlier."""
-        from yolo_quantization_tpu.nn.graph import _batch_range
+        from yoloq.nn.graph import _batch_range
 
         y = jnp.concatenate([
             jax.random.uniform(jax.random.PRNGKey(0), (100_000,), minval=-1.0, maxval=1.0),
@@ -299,8 +299,8 @@ class TestR4TrainingOptions:
         """The float-phase fast path (stats conv IS the layer conv) must be
         numerically equivalent to folding BN into the weights and re-running
         the conv (conv(x, w*inv) == conv(x, w)*inv)."""
-        from yolo_quantization_tpu.nn import layers as L
-        from yolo_quantization_tpu.nn.graph import ConvSpec, _conv_forward
+        from yoloq.nn import layers as L
+        from yoloq.nn.graph import ConvSpec, _conv_forward
 
         s = ConvSpec(filters=8, size=3, pad=1, activation="leaky")
         rng = np.random.default_rng(0)
@@ -325,7 +325,7 @@ class TestLearnedRanges:
     def test_fake_quant_learned_gradients(self):
         """TF FakeQuantWithMinMaxVars gradient semantics: in-range passes to
         x; clamped-below accumulates into d/dmin, clamped-above into d/dmax."""
-        from yolo_quantization_tpu.core.quant import fake_quant_learned
+        from yoloq.core.quant import fake_quant_learned
 
         x = jnp.asarray([-5.0, 0.5, 2.0, 9.0, 12.0])
         lo, hi = jnp.float32(-2.0), jnp.float32(8.0)
@@ -388,7 +388,7 @@ class TestEarlyTrainingHeuristics:
     overrides (src/detection_layer.c:136-145)."""
 
     def test_region_warmup_active_below_12800_seen(self):
-        from yolo_quantization_tpu.train.loss import region_head_loss
+        from yoloq.train.loss import region_head_loss
 
         rng = np.random.default_rng(0)
         out = jnp.asarray(rng.normal(0, 0.5, (1, 5, 5, 5 * 25)).astype(np.float32))
@@ -402,7 +402,7 @@ class TestEarlyTrainingHeuristics:
         assert float(cold) == pytest.approx(float(base), rel=1e-6)
 
     def test_v1_forced_and_random_overrides(self):
-        from yolo_quantization_tpu.train.loss import (
+        from yoloq.train.loss import (
             detection_head_loss,
             encode_detection_truth,
         )
@@ -449,9 +449,9 @@ class TestR5TrainingOptions:
         import jax
         import jax.numpy as jnp
 
-        from yolo_quantization_tpu.core.quant import fake_quant
-        from yolo_quantization_tpu.nn import layers as L
-        from yolo_quantization_tpu.nn.graph import (
+        from yoloq.core.quant import fake_quant
+        from yoloq.nn import layers as L
+        from yoloq.nn.graph import (
             ConvSpec,
             ForwardMode,
             _conv_forward,
@@ -474,7 +474,7 @@ class TestR5TrainingOptions:
             return y
 
         def composed(p, x):
-            from yolo_quantization_tpu.core.quant import (
+            from yoloq.core.quant import (
                 fake_quant_symmetric_per_channel,
             )
 
@@ -496,8 +496,8 @@ class TestR5TrainingOptions:
         moving."""
         import jax
 
-        from yolo_quantization_tpu.train.loss import MAX_BOXES
-        from yolo_quantization_tpu.train.qat import TrainConfig, Trainer
+        from yoloq.train.loss import MAX_BOXES
+        from yoloq.train.qat import TrainConfig, Trainer
 
         cfg = TrainConfig(burn_in=0, quant_start_step=0,
                           freeze_ranges_after=2, donate_state=False)

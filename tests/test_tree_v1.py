@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.core.tree import (
+from yoloq.core.tree import (
     HierarchyTree,
     hierarchy_cross_entropy,
     hierarchy_predictions,
@@ -162,8 +162,8 @@ def test_hierarchy_cross_entropy_trains(tree):
 
 
 def test_region_head_with_tree_forward_and_decode(tree):
-    from yolo_quantization_tpu.eval.detect import decode_region_head, tree_top_probs
-    from yolo_quantization_tpu.nn.graph import RegionSpec, apply_simple_layer
+    from yoloq.eval.detect import decode_region_head, tree_top_probs
+    from yoloq.nn.graph import RegionSpec, apply_simple_layer
 
     spec = RegionSpec(
         anchors=((1.0, 1.0), (2.0, 2.0)), classes=tree.n, num=2, softmax=False,
@@ -197,7 +197,7 @@ def test_region_head_with_tree_forward_and_decode(tree):
 def test_region_loss_tree_gradient_structure(tree):
     """Class gradients may only touch the truth's path groups
     (delta_region_class hier branch, src/region_layer.c:117-129)."""
-    from yolo_quantization_tpu.train.loss import MAX_BOXES, region_head_loss
+    from yoloq.train.loss import MAX_BOXES, region_head_loss
 
     rng = np.random.default_rng(4)
     a, c = 2, tree.n
@@ -241,7 +241,7 @@ def _fill_truth_region_c(boxes, side, classes):
 
 
 def test_encode_detection_truth_golden():
-    from yolo_quantization_tpu.train.loss import MAX_BOXES, encode_detection_truth
+    from yoloq.train.loss import MAX_BOXES, encode_detection_truth
 
     side, classes = 3, 4
     rng = np.random.default_rng(5)
@@ -267,9 +267,9 @@ def test_encode_detection_truth_golden():
 def test_detection_loss_converges():
     """A linear layer + v1 head fits a single example: loss -> near 0 and the
     decoded box matches the truth."""
-    from yolo_quantization_tpu.eval.detect import decode_detection_head
-    from yolo_quantization_tpu.nn.graph import DetectionSpec
-    from yolo_quantization_tpu.train.loss import (
+    from yoloq.eval.detect import decode_detection_head
+    from yoloq.nn.graph import DetectionSpec
+    from yoloq.train.loss import (
         MAX_BOXES,
         detection_head_loss,
         encode_detection_truth,
@@ -307,7 +307,7 @@ def test_detection_loss_converges():
 
 def test_detection_loss_noobj_gradient_structure():
     """Cells without objects only receive confidence gradients."""
-    from yolo_quantization_tpu.train.loss import (
+    from yoloq.train.loss import (
         MAX_BOXES,
         detection_head_loss,
         encode_detection_truth,
@@ -332,13 +332,13 @@ def test_hierarchical_classifier_trains(tree, tmp_path):
     leaf classes with the hierarchical loss and greedy-descent prediction."""
     from PIL import Image
 
-    from yolo_quantization_tpu.nn.graph import (
+    from yoloq.nn.graph import (
         AvgPoolSpec,
         ConvSpec,
         NetworkDef,
         SoftmaxSpec,
     )
-    from yolo_quantization_tpu.train.classify import (
+    from yoloq.train.classify import (
         ClassificationDataset,
         ClassifierTrainer,
         evaluate_top_k,
@@ -387,14 +387,14 @@ def test_hierarchical_classifier_trains(tree, tmp_path):
 def test_yolov1_tiny_end_to_end():
     """zoo.yolov1_tiny forward -> detection loss -> grads -> decode, at a
     reduced input size (448 is slow on CPU)."""
-    from yolo_quantization_tpu.eval.detect import decode_all_heads
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.nn.graph import (
+    from yoloq.eval.detect import decode_all_heads
+    from yoloq.models import zoo
+    from yoloq.nn.graph import (
         DetectionSpec,
         forward,
         init_params,
     )
-    from yolo_quantization_tpu.train.loss import MAX_BOXES, total_loss
+    from yoloq.train.loss import MAX_BOXES, total_loss
 
     net = zoo.yolov1_tiny(classes=3, width=64, height=64, side=4)
     assert isinstance(net.specs[-1], DetectionSpec)
@@ -425,8 +425,8 @@ def test_yolov1_tiny_end_to_end():
 
 def test_cfg_tree_option(tmp_path):
     """[softmax] tree= and [region] tree= load relative to the cfg file."""
-    from yolo_quantization_tpu.models.cfg import load_cfg
-    from yolo_quantization_tpu.nn.graph import RegionSpec, SoftmaxSpec
+    from yoloq.models.cfg import load_cfg
+    from yoloq.nn.graph import RegionSpec, SoftmaxSpec
 
     (tmp_path / "tiny.tree").write_text("\n".join(TREE_LINES) + "\n")
     cfg = """

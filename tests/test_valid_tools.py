@@ -7,17 +7,17 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from yolo_quantization_tpu.eval.valid import (
+from yoloq.eval.valid import (
     voc_map,
     write_coco_results,
     write_imagenet_results,
     write_voc_results,
 )
-from yolo_quantization_tpu.infer.engine import Engine
-from yolo_quantization_tpu.models import weights_tools as wt
-from yolo_quantization_tpu.models import zoo
-from yolo_quantization_tpu.models.presets import flagship_program
-from yolo_quantization_tpu.nn.graph import init_params_numpy
+from yoloq.infer.engine import Engine
+from yoloq.models import weights_tools as wt
+from yoloq.models import zoo
+from yoloq.models.presets import flagship_program
+from yoloq.nn.graph import init_params_numpy
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +92,7 @@ class TestMAP:
     def test_perfect_detector_gets_map_1(self, dataset, monkeypatch, engine):
         """Feed ground truth back as detections -> AP must be 1."""
         lf, _ = dataset
-        import yolo_quantization_tpu.eval.valid as V
+        import yoloq.eval.valid as V
 
         def fake_predict(engine_, path, flip=False, class_map=None):
             boxes = np.array([[0.5, 0.5, 0.4, 0.4]], np.float32)
@@ -115,7 +115,7 @@ class TestWeightsTools:
         import jax
         import jax.numpy as jnp
 
-        from yolo_quantization_tpu.nn.graph import forward
+        from yoloq.nn.graph import forward
 
         net = zoo.yolov3_tiny(classes=5, width=64, height=64)
         params = init_params_numpy(0, net)
@@ -139,7 +139,7 @@ class TestWeightsTools:
         import jax
         import jax.numpy as jnp
 
-        from yolo_quantization_tpu.nn.graph import ConvSpec, forward
+        from yoloq.nn.graph import ConvSpec, forward
 
         net = zoo.yolov3_tiny(classes=5, width=64, height=64)
         params = init_params_numpy(0, net)

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from yolo_quantization_tpu.cli.main import main
-from yolo_quantization_tpu.data.video import VideoWriter, read_video, synthesize_clip
+from yoloq.cli.main import main
+from yoloq.data.video import VideoWriter, read_video, synthesize_clip
 
 MODEL = ["--model", "yolov3-tiny", "--size", "64", "--classes", "5"]
 
@@ -27,9 +27,9 @@ def test_video_roundtrip(tmp_path):
 def test_demo_on_video_file(tmp_path, capsys):
     import jax
 
-    from yolo_quantization_tpu.models import zoo
-    from yolo_quantization_tpu.models.darknet_weights import save_darknet_weights
-    from yolo_quantization_tpu.nn.graph import init_params
+    from yoloq.models import zoo
+    from yoloq.models.darknet_weights import save_darknet_weights
+    from yoloq.nn.graph import init_params
 
     net = zoo.yolov3_tiny(classes=5, width=64, height=64)
     params = {
